@@ -9,9 +9,9 @@ an assertion.  This sweep encodes the same clips with BOTH engines at
 QP in {1, 4, 7, 10} and records mean PSNR (reference Encoder.py:934-935
 metric) and mean bits/frame per engine, plus the deltas.
 
-Runs on CPU (the compat engine is host NumPy; pass --tpu to let the native
-engine use the chip).  Writes benchmarks/rd_parity.json and prints the table
-(mirrored into docs/TPU_DESIGN.md).
+Runs on the CPU (the compat engine is host NumPy; the native engine's bits
+and PSNR are backend-independent).  Writes benchmarks/rd_parity.json and
+prints the table (mirrored into docs/DESIGN.md).
 
     PYTHONPATH=/root/repo JAX_PLATFORMS=cpu python benchmarks/rd_parity.py
 """

@@ -1,6 +1,6 @@
-"""StreamOptima-TPU: a TPU-native block video codec framework.
+"""StreamOptima: a block video codec framework in JAX, run on NVIDIA GPUs.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 Suyashagarw/StreamOptima (a simplified H.264-style Y-only codec): I/P frames,
 full-search + fast motion estimation, half-pel fractional ME, multi-reference,
 variable block size with RD mode decision, 2D DCT + power-of-two quantization,

@@ -390,8 +390,8 @@ def read_bitstream(path_mv, path_res, cfg):
     ``cfg`` AFTER this call (VideoCodec.decode_bitstream does).
 
     Frames parse through the native C++ parser when available (into
-    FrameMVArrays / FrameResArrays — the Python text parse measured
-    ~370 ms/frame at 720p against ~2.5 ms of device decode), falling back
+    FrameMVArrays / FrameResArrays — the Python text parse costs hundreds
+    of ms per 720p frame on the host), falling back
     per line to the Python parser on unavailability or any anomaly (corrupt
     streams keep their loud list-path errors).  The compat engine indexes
     the list format directly, so ``cfg.compat`` keeps it."""

@@ -10,7 +10,7 @@ bug B5 in COMPAT_NOTES.md):
     frames = codec.decode_bitstream("mv.txt", "res.txt")  # decoder.py:692
     codec.save_decoded_frames("out.yuv")         # decoder.py:711
 
-Engines: cfg.engine == "jax" (native TPU pipeline; optionally multi-chip via
+Engines: cfg.engine == "jax" (native device pipeline; optionally multi-device via
 ``mesh=``) or "compat" (host NumPy, bit-exact with the reference).
 """
 from __future__ import annotations

@@ -49,8 +49,8 @@ class CodecConfig:
     intra_thresh: int | None = None
     parallel_mode: int = 0
 
-    # --- TPU-native extensions -------------------------------------------
-    # "jax": native engine (exact int DCT, jitted TPU pipeline)
+    # --- native extensions -----------------------------------------------
+    # "jax": native engine (exact int DCT, jitted device pipeline)
     # "compat": host engine, bit-exact with the NumPy reference
     engine: str = "jax"
     # compat text formatting: coefficient values serialized as np.int64(v)
@@ -64,63 +64,40 @@ class CodecConfig:
     two_pass: bool = False
     # devices for multi-chip sharding (parallel/ modes); None => single chip
     mesh_devices: Any = None
-    # full-search kernel: "auto" picks per context (measured on TPU v5e):
-    # the hand-scheduled Pallas kernel (core/me_pallas.py) for whole-pel
-    # search on TPU, "materialized" (candidate maps + argmin) in the
-    # per-frame jitted step otherwise, "fused" (streaming reduction) inside
-    # GOP-scan/sharded programs.  All bit-identical (core/me.py).
+    # full-search kernel: "auto" picks per context — "materialized"
+    # (candidate maps + argmin) in the per-frame jitted step, "fused"
+    # (streaming reduction) inside GOP-scan/sharded programs.  All
+    # bit-identical (core/me.py).  The split is inherited from the first
+    # build and not yet measured on the H100.
     me_search: str = "auto"
     # fast-ME MVP chain solver: the reference's chain (Encoder.py:719-742,
     # MVP = previous block's MV in raster order) is inherently sequential.
-    # "scan" runs it as a lax.scan (one step per block — latency-bound on
-    # TPU); "fixpoint" solves the same recurrence mv[i] = f_i(mv[i-1]) by
-    # Jacobi iteration: evaluate EVERY block against its guessed MVP in one
-    # batched pass, re-derive the guesses, repeat until unchanged.  Any
-    # fixpoint of the chain equations equals forward substitution (unique by
-    # induction on i), so the result is bit-identical; convergence takes
+    # "scan" runs it as a lax.scan (one step per block); "fixpoint" solves
+    # the same recurrence mv[i] = f_i(mv[i-1]) by Jacobi iteration:
+    # evaluate EVERY block against its guessed MVP in one batched pass,
+    # re-derive the guesses, repeat until unchanged.  Any fixpoint of the
+    # chain equations equals forward substitution (unique by induction on
+    # i), so the result is bit-identical; convergence takes
     # O(#MV-discontinuities) sweeps instead of #blocks steps.  "rowscan"
     # nests the two: a lax.scan over block COLUMNS is exact within every
     # block row simultaneously (blocks (r, j) all step together), so the
     # Jacobi iteration runs only over the per-row seed MVs — the raster
     # chain's row-to-row hand-off — and converges in a couple of outer
-    # passes instead of one sweep per intra-row discontinuity (measured
-    # 19.5 warm sweeps/frame at CIF qp=5 for plain Jacobi); its block eval
-    # is the MXU one-hot window gather of core/fastme.py, which also folds
-    # the VBS quad search and the winner predictions into one confirm pass.
-    # All three are bit-identical.  "auto" => rowscan.
+    # passes instead of one sweep per intra-row discontinuity; its block
+    # eval is the window fetch of core/fastme.py, which also folds the VBS
+    # quad search and the winner predictions into one confirm pass.  All
+    # three are bit-identical.  "auto" => rowscan.
     fast_me_chain: str = "auto"
-    # encode winner-prediction fetch: with the Pallas search kernel, keeping
-    # the winner's pixels in-kernel (masked select per candidate) costs about
-    # half the VBS+FME encode step.  "fetch" searches argmin-only and fetches
-    # the winners' windows through the decode-side compact-DMA kernel
-    # (me_pallas.pred_fetch_compact, one DMA per distinct winner MV; the DMA
-    # table is built ON DEVICE — me_pallas.build_fetch_table_jax — and sized
-    # to the exact worst-case distinct-winner bound, so no fallback path
-    # exists).  "inkernel" keeps the masked-select path.  "auto" picks by
-    # config: fetch under VBS (where the in-kernel full+quad selects shrink
-    # the search band — 79 -> 94 fps 720p VBS+FME), in-kernel otherwise (the
-    # search already streams every window through VMEM, so the select adds
-    # no HBM traffic while the fetch re-reads one band-wide window per
-    # distinct winner — measured 36 -> 22.7 fps at 4K plain full search when
-    # fetch ran unconditionally).  Bit-identical paths (tests/test_pallas.py).
-    winner_fetch: str = "auto"
     # fast-ME window fetch: the rowscan chain solve reads one (bs+2)-square
     # window per block per sweep step at a data-dependent position.  "xla"
-    # is the one-hot MXU gather (core/fastme.window_gather; materializes a
-    # (nb, P, H, nwin) f32 column-select intermediate per call — measured
-    # 3.6 ms for the 720p FME confirm fetch and ~40 us per sweep step).
-    # "pallas" is one small banded DMA per block (me_pallas.window_fetch,
-    # window origins ride the DMA 8/128-aligned with log-select barrel
-    # shifts for the remainders) — measured DMA-issue-bound at ~1.1 us/block:
-    # raw parity with the XLA gather at both rowscan shapes but a 16.7 ->
-    # 38.4 ms/step in-situ REGRESSION at 720p VBS+FME, and square-window /
-    # k=1 only.  "slice" is a vmapped clamped dynamic_slice on zero-padded
-    # planes (~2.1 us/block, plane-area-INDEPENDENT — with pad >= the window
-    # extent, clamping is exact zero-fill).  "auto" picks by plane area
-    # (fastme.resolve_fetch_mode): one-hot below ~0.5 Mpx (CIF), slice from
-    # 720p up (measured 108.8 vs 97.0 fps at 720p, 50.9 vs 31.4 at 1080p,
-    # 9.9 vs 3.7 at 4K — the one-hot contracts the whole plane per block).
-    # Bit-identical paths (tests/test_fastme.py).
+    # is the one-hot matmul gather (core/fastme.window_gather; its cost
+    # grows with the plane area, since every block contracts the whole
+    # plane).  "slice" is a vmapped clamped dynamic_slice on zero-padded
+    # planes (plane-area-independent — with pad >= the window extent,
+    # clamping is exact zero-fill).  "auto" picks by plane area
+    # (fastme.resolve_fetch_mode): one-hot below ~2.5 Mpx of planes, slice
+    # above; the cut is inherited from the first build and not yet measured
+    # on the H100.  Bit-identical paths (tests/test_fastme.py).
     fast_me_fetch: str = "auto"
     # rowscan segment multiplier: the raster MVP chain is cut into
     # ``seg_mult * n_block_rows`` equal segments solved simultaneously by the
@@ -128,15 +105,8 @@ class CodecConfig:
     # seeds fixpoint argument in fast_me_chain holds for ANY segmentation of
     # the 1-D chain, so every value is bit-identical; only divisors of the
     # block-column count are usable and the resolver rounds down to one).
-    # MEASURED (benchmarks/segscan_ab.py, on-chip): k > 1 LOSES, roughly
-    # linearly in k — 720p FME solve 17.8 (k=1) / 23.4 (k=2) / 48 (k=4) /
-    # 115 ms (k=16); CIF 1.12 (k=1) / 6.15 ms (k=11).  Seed corrections
-    # propagate ONE segment per outer Jacobi pass, so pass count grows with
-    # the segment count faster than the per-pass step count shrinks: chain
-    # solve time is bounded by information propagation, not by per-step
-    # batch width.  "auto" = 1 (block rows, the propagation-optimal cut);
-    # the knob stays for the segmentation-invariance tests and for shapes
-    # where future hardware moves the balance.
+    # Seed corrections propagate ONE segment per outer Jacobi pass, so the
+    # pass count grows with the segment count; "auto" = 1 (block rows).
     fast_me_seg_mult: int | str = "auto"
     # Speculative lookahead of the rowscan chain step: each lax.scan step
     # resolves k consecutive chain columns from ONE wide window per segment
@@ -144,22 +114,10 @@ class CodecConfig:
     # MVP+delta, delta in {-1,0,1}^2, so all k columns' candidate SADs come
     # from static slices of a window covering the hypothesis cone, and the
     # chain resolves with cheap traced selects.  Sequential step count drops
-    # k-fold at the SAME per-column gather FLOPs (the solve is propagation-
-    # bound — see fast_me_seg_mult above).  "auto" = measured per-shape rule
-    # (benchmarks/lookahead_ab.py); any k >= 1 is bit-identical.
+    # k-fold at the SAME per-column gather work.  "auto" = a per-shape rule
+    # inherited from the first build (fastme.resolve_lookahead; not yet
+    # measured on the H100); any k >= 1 is bit-identical.
     fast_me_lookahead: int | str = "auto"
-    # Whole-pass rowscan kernel (me_pallas.rowscan_pass): run each sweep pass
-    # as ONE Pallas kernel — per-segment DMA waves on lane-interleaved parity
-    # planes + the in-kernel eval_chain_flat twin — instead of an XLA scan of
-    # per-group gather+eval steps.  Removes the per-step scan overhead and
-    # the slice-gather's row-scatter cost (the measured 4K floor: 22 ms/pass
-    # of which ~12.6 ms gather + ~7.6 ms scan overhead; kernel pass measured
-    # 10.3 ms).  "kernel" forces it (interpret mode off-TPU — the bit-parity
-    # test path), "xla" keeps the scan, "auto" = currently OFF pending the
-    # S=135 on-chip parity investigation (fastme.resolve_pass_kernel).
-    # Bit-identical in interpret mode and on-chip at small S
-    # (tests/test_fastme.py).
-    fast_me_pass: str = "auto"
 
     #: bounded-HBM encode: frames this far behind the dispatch frontier have
     #: their outputs converted to host arrays (freeing their device buffers —
@@ -167,19 +125,12 @@ class CodecConfig:
     #: OOMs long clips).  None = automatic: drain under ``encode(package=
     #: True)``, where every output is already copy_to_host_async'd at
     #: dispatch; ``encode(package=False)`` keeps outputs device-resident (its
-    #: callers — benchmarks, metric sweeps — read only recon/metrics, and the
-    #: coefficients' D2H would dominate wall time on thin links).  Set an int
+    #: callers — benchmarks, metric sweeps — read only recon/metrics; the
+    #: choice was made on a TPU and is not yet measured on the H100).  Set an int
     #: lag for long production encodes with package=False + transmit: outputs
     #: drain incrementally (overlapping compute) instead of cold-syncing per
     #: frame at serialization time.
     encode_drain: int | None = None
-
-    @property
-    def winner_fetch_mode(self) -> str:
-        """Resolved winner_fetch: 'fetch' or 'inkernel' (never 'auto')."""
-        if self.winner_fetch != "auto":
-            return self.winner_fetch
-        return "fetch" if self.vbs_enable else "inkernel"
 
     def __post_init__(self) -> None:
         if self.height % self.block_size or self.width % self.block_size:
@@ -194,8 +145,8 @@ class CodecConfig:
         if self.intra_mode not in (0, 1):
             raise ValueError("intra_mode must be 0 (horizontal) or 1 (vertical)")
         # the search kernels pack the lexicographic tie-break as
-        # (l1<<3 | ref)<<8 | dxi)<<8 | dyi (core/me.py argmin, the fused and
-        # Pallas twins): 3 bits of reference index and 8 bits per grid
+        # (l1<<3 | ref)<<8 | dxi)<<8 | dyi (core/me.py argmin and its fused
+        # twin): 3 bits of reference index and 8 bits per grid
         # displacement index.  Out-of-range configs would OVERFLOW the
         # packing and silently pick wrong winners — refuse them loudly.
         # (The reference itself has no such limits but degrades to hours of
@@ -214,16 +165,14 @@ class CodecConfig:
             )
         if self.engine not in ("jax", "compat"):
             raise ValueError("engine must be 'jax' or 'compat'")
-        if self.me_search not in ("auto", "materialized", "fused", "pallas"):
-            raise ValueError("me_search must be 'auto', 'materialized', 'fused' or 'pallas'")
+        if self.me_search not in ("auto", "materialized", "fused"):
+            raise ValueError(f"me_search must be 'auto', 'materialized' or 'fused' "
+                             f"(got {self.me_search!r})")
         if self.fast_me_chain not in ("auto", "scan", "fixpoint", "rowscan"):
             raise ValueError("fast_me_chain must be 'auto', 'scan', 'fixpoint' or 'rowscan'")
-        if self.winner_fetch not in ("auto", "fetch", "inkernel"):
-            raise ValueError("winner_fetch must be 'auto', 'fetch' or 'inkernel'")
-        if self.fast_me_fetch not in ("auto", "pallas", "xla", "slice"):
-            raise ValueError("fast_me_fetch must be 'auto', 'pallas', 'xla' or 'slice'")
-        if self.fast_me_pass not in ("auto", "kernel", "xla"):
-            raise ValueError("fast_me_pass must be 'auto', 'kernel' or 'xla'")
+        if self.fast_me_fetch not in ("auto", "xla", "slice"):
+            raise ValueError(f"fast_me_fetch must be 'auto', 'xla' or 'slice' "
+                             f"(got {self.fast_me_fetch!r})")
         if self.fast_me_seg_mult != "auto" and (
             not isinstance(self.fast_me_seg_mult, int)
             or isinstance(self.fast_me_seg_mult, bool)

@@ -1,16 +1,12 @@
-"""Fast-ME (3x3 MVP-chain search) as batched MXU programs.
+"""Fast-ME (3x3 MVP-chain search) as batched array programs.
 
 The reference's fast ME (Encoder.py:719-742) recenters every block's 3x3
 candidate window on its raster predecessor's MV, so each block reads a small
-window at a *data-dependent* position.  Lowered naively (vmapped
-dynamic_slice) XLA turns that into a slice-gather at ~2.1 us/block on TPU —
-per-sweep cost is pure gather latency, and the Jacobi chain solve needs tens
-of sweeps on lossy references (measured 19.5 warm / 30 cold sweeps/frame at
-CIF qp=5).  This module replaces the whole eval with TPU-native pieces:
+window at a *data-dependent* position, and the Jacobi chain solve needs tens
+of sweeps on lossy references.  This module batches the whole eval:
 
-* ``window_gather``: the per-block dynamic window read as two 0/1 MXU
-  matmuls (one-hot row/column selectors), the same gather-killer trick the
-  search kernels use for mask expansion.  Out-of-plane indices match no
+* ``window_gather``: the per-block dynamic window read as two 0/1
+  matmuls (one-hot row/column selectors).  Out-of-plane indices match no
   one-hot column and read EXACT zeros — which is precisely the reference's
   zero-fill semantics for out-of-frame reads, so no padding and no clamping
   exist anywhere on this path.
@@ -26,8 +22,7 @@ CIF qp=5).  This module replaces the whole eval with TPU-native pieces:
   static slices + parity selects.
 * ``confirm``: one extra batched pass at the converged MVPs that returns
   the four VBS quad searches (their windows live inside the SAME regions —
-  the quad sweep used to cost 4 ms/frame of its own gathers at CIF) and the
-  winner predictions with bit-exact ``pred.gather_predictions`` semantics
+  no second gather) and the winner predictions with bit-exact ``pred.gather_predictions`` semantics
   (case A/B/C: the g2 stride-2 window, the all-128 margin fallback, and the
   g1 stride-1 zero-filled window are all reconstructed from the fetched
   regions; g1's parity interleave is a static 2x2 sub-grid merge).
@@ -47,25 +42,14 @@ from . import me as M
 
 _INF32 = np.int32(2**31 - 1)
 
-# A/B knobs (benchmarks/winfetch_probe.py, round-5 4K 2x2 matrix): sweep-step
-# fetch as an unrolled dynamic_slice loop vs the vmapped gather, and candidate
-# selects as one-hot contractions vs take+where unrolls.  Measured (4K sweep
-# pass, ms): base 22.4, unroll 38.5 (the unrolled slices serialize INSIDE the
-# scan even though they are ~free standalone — per-op issue replaces the
-# gather's overlapped latency), onehot 22.1 (neutral at 4K; kept — it cuts
-# ~100 fusions/column from the program, which is what binds at CIF/720p).
-_SLICE_UNROLL = False
-_ONEHOT_SELECT = True
-
 _seg_mult_warned: set = set()
 
 
 def resolve_seg_mult(req, nbc: int) -> int:
     """Resolved rowscan segment multiplier k (a divisor of nbc; the chain is
-    cut into k*nbr segments of nbc/k blocks).  "auto" = 1: measured on-chip
-    (benchmarks/segscan_ab.py), k > 1 loses roughly linearly in k because
-    Jacobi seed corrections travel one segment per outer pass — the solve is
-    propagation-bound, so the row cut is optimal.  Explicit requests round
+    cut into k*nbr segments of nbc/k blocks).  "auto" = 1: Jacobi seed
+    corrections travel one segment per outer pass, so more segments mean
+    more passes.  Explicit requests round
     DOWN to the nearest divisor of nbc, with a one-time warning when the
     effective k differs from the request (a benchmark asking for a specific
     k must not silently measure a different one)."""
@@ -89,60 +73,30 @@ def resolve_seg_mult(req, nbc: int) -> int:
 _lookahead_warned: set = set()
 
 
-def resolve_lookahead(req, fetch_mode: str, seg_len: int, n_segments: int,
-                      bs: int = 16, fme: bool = True) -> int:
+def resolve_lookahead(req, seg_len: int, n_segments: int) -> int:
     """Resolved rowscan lookahead (chain columns per scan step) — the ONE
-    rule for both engines (JaxCodec and ShardedCodec ship the same measured
-    policy; duplicating it invited drift).
+    rule for both engines (JaxCodec and ShardedCodec share it so they
+    cannot drift).
 
-    "auto" = k=4 on >= 32-segment batches, else 1 (benchmarks/lookahead_ab:
-    per-pass gather FLOPs are k-independent while sequential steps drop
-    k-fold — 720p inter step 14.6 -> 10.0 ms — but at CIF scale the per-step
-    cost is fixed-op-count-bound and every k > 1 measured slower).  The
-    Pallas per-block DMA fetch serves wide windows within its (32, 256)
-    fetch geometry (rows <= 24, cols <= 128 — every auto shape: FME k=4
-    reads 21x69); larger explicit requests clamp to the largest k that
-    fits.  Explicit requests clamp to [1, seg_len]; when the effective k
-    differs from an explicit request a one-time warning fires (a benchmark
-    asking for a specific k must not silently measure a different one —
-    the resolve_seg_mult discipline)."""
+    "auto" = k=4 on >= 32-segment batches, else 1: per-pass gather work is
+    k-independent while sequential steps drop k-fold, but on small frames the
+    per-step cost is op-count-bound.  The rule is inherited from the first
+    build and not yet measured on the H100.  Explicit requests clamp to
+    [1, seg_len]; when the effective k differs from an explicit request a
+    one-time warning fires (a benchmark asking for a specific k must not
+    silently measure a different one — the resolve_seg_mult discipline)."""
     k = (4 if n_segments >= 32 else 1) if req == "auto" else int(req)
     k = max(1, min(k, seg_len))
-    if fetch_mode == "pallas":
-        while k > 1:
-            wr, wc = wide_window_spec(bs, k, fme)
-            if wr <= 24 and wc <= 128:
-                break
-            k -= 1
-    if req != "auto" and k != req and (req, fetch_mode, seg_len) not in _lookahead_warned:
-        _lookahead_warned.add((req, fetch_mode, seg_len))
+    if req != "auto" and k != req and (req, seg_len) not in _lookahead_warned:
+        _lookahead_warned.add((req, seg_len))
         import warnings
 
         warnings.warn(
-            f"fast_me_lookahead={req} is not servable "
-            f"(fetch={fetch_mode!r}, segment length {seg_len}); "
-            f"running the effective k={k}",
+            f"fast_me_lookahead={req} is not servable (segment length "
+            f"{seg_len}); running the effective k={k}",
             stacklevel=3,
         )
     return k
-
-
-def resolve_pass_kernel(req: str, kl: int) -> bool:
-    """Whole-pass rowscan kernel policy (cfg.fast_me_pass) — ONE rule for
-    both engines.  "auto" = on for TPU backends whenever the resolved
-    lookahead kl > 1 (the kernel's DMA geometry serves kl in [2, 7]; kl = 1
-    shapes are one-hot-optimal already); "kernel" forces it (interpret mode
-    off-TPU — the bit-parity test path); "xla" keeps the scan.  On-chip
-    parity pinned at S=8 AND the 4K S=135 production shape (the one
-    divergence found was the fold matmul's default bf16 MXU precision —
-    fixed with Precision.HIGHEST, benchmarks round-5)."""
-    if req == "xla" or kl <= 1:
-        return False
-    if req == "kernel":
-        return True
-    import jax
-
-    return jax.default_backend() == "tpu"
 
 
 def plane_stack(refs, fme: bool, xp, wrap_row_pass: bool = True):
@@ -155,8 +109,8 @@ def plane_stack(refs, fme: bool, xp, wrap_row_pass: bool = True):
     (nref, h, w) the frames themselves.
 
     bf16 is exact for pixel-range integers (<= 255 after the ceil-average
-    half-pel interpolation) and is the MXU-native operand type for the
-    one-hot window gather.
+    half-pel interpolation), so the one-hot window gather's bf16 products
+    with f32 accumulation are exact.
     """
     import jax
 
@@ -178,11 +132,11 @@ def window_gather(planes, by0, bx0, nwin: int, xp, chunk_bytes: int = 32 << 20,
     square unless ``nwin_c`` widens the column span (the lookahead chain
     step's multi-column wide windows).
 
-    Two MXU matmuls per chunk, ordered by window shape.  Square windows
+    Two matmuls per chunk, ordered by window shape.  Square windows
     (the confirm pass, k=1 sweeps): columns first ((P*H, W) @ (W, nc*nwin_c)
     — one large plain matmul), then rows (per-block batched (nwin, H) @
     (H, P*nwin_c)); the (nc, P, H, nwin_c) f32 intermediate is the smaller
-    one and the order is the measured round-3 winner (wingather_ab).  WIDE
+    one.  WIDE
     windows (nwin_c > nwin: the lookahead chain step, whose column span
     grows ~k-fold) flip to rows first — the first contraction's cost scales
     with the OUTPUT axis it keeps (rows: n+k+1 vs columns: ~k(n+1)), so
@@ -232,17 +186,12 @@ def window_gather(planes, by0, bx0, nwin: int, xp, chunk_bytes: int = 32 << 20,
 
 def resolve_fetch_mode(req: str, h: int, w: int, nplanes: int = 4) -> str:
     """Fast-ME window-fetch mode.  "auto" picks by total plane bytes: the
-    one-hot MXU gather's per-block cost is O(P*H*W) (it contracts every
-    plane in full), so it wins on small stacks (CIF FME: ~0.07 us/block, a
-    0.19 ms pass; 720p whole-pel P=1: 207 fps recorded) but loses to a
-    vmapped clamped-dynamic_slice gather (~2.1 us/block, area-independent)
-    as P*H*W grows — measured GOP-scan A/B (ab_gop, fast-ME sr16 VBS+FME,
-    P=4): 720p 108.8 slice vs 97.0 xla fps, 1080p 50.9 vs 31.4, 4K 9.9 vs
-    3.7.  The 2.5 Mpx cut puts 720p FME (3.7 Mpx-planes) on slice and 720p/1080p
-    whole-pel single-ref (0.9 / 2.1 — modeled cheaper one-hot) / CIF on the
-    one-hot.  "pallas" is the per-block DMA
-    kernel (k=1 only); explicit "xla"/"slice" force a path."""
-    if req in ("pallas", "xla", "slice"):
+    one-hot gather's per-block cost is O(P*H*W) (it contracts every plane
+    in full), so it suits small stacks, while the vmapped clamped-
+    dynamic_slice gather is area-independent.  The 2.5 Mpx cut is inherited
+    from the first build and not yet measured on the H100; explicit
+    "xla"/"slice" force a path."""
+    if req in ("xla", "slice"):
         return req
     return "slice" if nplanes * h * w > 2_500_000 else "xla"
 
@@ -250,25 +199,17 @@ def resolve_fetch_mode(req: str, h: int, w: int, nplanes: int = 4) -> str:
 def window_prep(planes, nwin: int, mode, wide=None):
     """Per-frame window-read preparation, by mode:
 
-    * "pallas": me_pallas.window_prep (planes padded/cast once for the DMA
-      kernel; square windows only).
     * "slice": planes zero-padded by the LARGEST read extents and stored
       uint8 — window_read then uses clamped ``lax.dynamic_slice``, which is
       EXACT zero-fill: with pad >= the window extent on each axis, any
       clamped start lands entirely inside the zero pad exactly when the true
       window is entirely out of plane, and un-clamped reads see the same
       zeros the one-hot gather produces positionally.
-    * "xla" (or legacy bools): the raw planes for the one-hot MXU gather.
+    * "xla": the raw planes for the one-hot gather.
 
     ``wide`` = (rows, cols) of the lookahead wide window when larger than
     the square ``nwin`` (the pad must cover the largest read on both
     paths)."""
-    if mode is True or mode == "pallas":
-        from . import me_pallas as MP
-
-        pr = max(nwin, wide[0] if wide else 0)
-        pc = max(nwin, wide[1] if wide else 0)
-        return ("pallas", MP.window_prep(planes, pr, nwin_c=pc))
     if mode == "slice":
         import jax.numpy as jnp
 
@@ -279,41 +220,31 @@ def window_prep(planes, nwin: int, mode, wide=None):
     return ("xla", planes)
 
 
-def window_read(prep, by0, bx0, nwin: int, xp, interpret: bool = False,
-                nwin_c: int | None = None):
+def window_read(prep, by0, bx0, nwin: int, xp, nwin_c: int | None = None):
     """windows[b, p, i, j] = planes[p, by0[b]+i, bx0[b]+j], 0 out of plane —
-    through the handle from window_prep.  Bit-identical every way: one
-    banded DMA per block (me_pallas.window_fetch), a clamped dynamic_slice
-    on zero-padded planes, or the one-hot MXU gather (window_gather).
-    Rectangular windows (``nwin_c`` — the lookahead chain step's wide
-    windows) are served by all three."""
+    through the handle from window_prep.  Bit-identical either way: a
+    clamped dynamic_slice on zero-padded planes, or the one-hot gather
+    (window_gather).  Rectangular windows (``nwin_c`` — the lookahead chain
+    step's wide windows) are served by both."""
+    import jax
+    from jax import lax
+
     kind, data = prep
-    if kind == "pallas":
-        from . import me_pallas as MP
-
-        return MP.window_fetch(data, by0, bx0, nwin, interpret=interpret,
-                               nwin_c=nwin_c)
-    if kind == "slice":
-        import jax
-        from jax import lax
-
+    with jax.named_scope("fastme_window"):
+        if kind != "slice":
+            return window_gather(data, by0, bx0, nwin, xp, nwin_c=nwin_c)
         padded, pr, pc = data
         nc = nwin if nwin_c is None else nwin_c
         P = padded.shape[0]
 
         def one(y, x):
-            return lax.dynamic_slice(padded, (0, y + pr, x + pc), (P, nwin, nc))
+            # negative starts must clamp to 0, not wrap from the far edge:
+            # an origin beyond the pad (a K8 fallback MVP far out of frame)
+            # would otherwise read real pixels where the window is all zeros
+            return lax.dynamic_slice(padded, (0, y + pr, x + pc), (P, nwin, nc),
+                                     allow_negative_indices=False)
 
-        if _SLICE_UNROLL and by0.shape[0] <= 160:
-            # A/B LOSER kept probeable: an unrolled loop of true
-            # dynamic-slice ops is ~free standalone but SERIALIZES inside
-            # the sweep scan (4K pass 22.4 -> 38.5 ms) — the vmapped gather's
-            # latency overlaps with eval compute, the unroll's issue chain
-            # does not (benchmarks/winfetch_probe.py round-5 matrix).
-            return xp.stack([one(by0[i], bx0[i]) for i in range(by0.shape[0])]
-                            ).astype(xp.int32)
         return jax.vmap(one)(by0, bx0).astype(xp.int32)
-    return window_gather(data, by0, bx0, nwin, xp, nwin_c=nwin_c)
 
 
 def _region_base(g, y, x, n: int, fme: bool, xp):
@@ -374,8 +305,7 @@ def _sad_stack(w, cur, n: int, no: int, xp):
     oy, ox in [0, no): the shifted-window SAD grid as TWO stacks of static
     slices + one abs-diff + one reduction.  The per-(oy, ox) slice-reduce
     form emits no^2 separate fusions whose fixed cost dominates latency-
-    sensitive callers (the rowscan scan step; measured in
-    benchmarks/lookahead_ab.py round 4).  ``cur`` must broadcast against
+    sensitive callers (the rowscan scan step).  ``cur`` must broadcast against
     w's leading dims with the trailing (n, n) window."""
     rstk = xp.stack([w[..., oy : oy + n, :] for oy in range(no)], axis=-3)
     cstk = xp.stack([rstk[..., ox : ox + n] for ox in range(no)], axis=-3)
@@ -429,8 +359,8 @@ def eval9(win, cur_blk, g, X, Y, n: int, dims, fme: bool, nvalid, xp):
 # ------------------- speculative multi-column lookahead chain steps --------
 #
 # The rowscan chain solve is bounded by information propagation: each lax.scan
-# step resolves ONE block column per segment, and per-step latency (~75 us at
-# 720p) dwarfs per-step compute.  The winner of a 3x3 fast-ME step always
+# step resolves ONE block column per segment, and per-step latency dwarfs
+# per-step compute.  The winner of a 3x3 fast-ME step always
 # sits at MVP + delta with delta in {-1,0,1}^2 (the K8 fallback keeps the MVP
 # position itself = the center candidate), so a step can resolve k columns at
 # once: fetch ONE wide window per segment covering every hypothesis chain,
@@ -459,8 +389,7 @@ def wide_window_spec(n: int, k: int, fme: bool):
 def _wide_base(g, y, x0, k: int, fme: bool, xp):
     """Wide-window origin for the 3x3 searches of k chain columns whose
     first column's MVP is ``g`` (block origins (y, x0), unscaled pixels).
-    FME: plane coordinates (floor((gy - k)/2)); k=1 reproduces _region_base.
-    Mosaic-safe (static column slices): also called inside rowscan_pass."""
+    FME: plane coordinates (floor((gy - k)/2)); k=1 reproduces _region_base."""
     gx, gy = _col(g, 0, xp), _col(g, 1, xp)
     if fme:
         return y + (gy - k) // 2, x0 + (gx - k) // 2
@@ -484,8 +413,7 @@ def _sad_grid_wpel(wide, cur, i: int, n: int, k: int, xp):
     Built as shifted-window STACKS (two concats of static slices) + ONE
     abs-diff + ONE reduction: the naive per-(a, b) slice-reduce form emits
     (2i+3)^2 separate fusions whose fixed per-fusion cost dominates the scan
-    step (measured: per-pass time grew ~linearly in k instead of staying
-    flat — benchmarks/lookahead_ab.py round 4)."""
+    step."""
     na = 2 * i + 3
     o0 = k - i - 1
     span = wide[:, :, o0 : o0 + na - 1 + n, n * i + o0 : n * i + o0 + na - 1 + n]
@@ -512,25 +440,13 @@ def _select_axis_wpel(grid, c, i: int, axis_from_end: int, xp):
     (2i+3)-long position axis, given the traced cumulative offset c (S,).
     axis_from_end: 2 = rows (second-to-last), 1 = cols (last).
 
-    One-hot CONTRACTION, not a where-chain: the original 3*(2i+3) take+where
-    unroll put ~100 separate fusions per resolved column into the scan body,
-    and the sweep step is fusion-count-bound (~0.5 us per fusion on chip —
-    benchmarks/winfetch_probe.py round 5).  The contraction is exact: the
+    One-hot CONTRACTION, not a where-chain: a 3*(2i+3) take+where unroll
+    puts ~100 separate fusions per resolved column into the scan body.  The
+    contraction is exact: the
     one-hot is integer 0/1, exactly one entry per (s, d) matches (|c| <= i
     by construction — drift only accrues on accepted candidates), so the
     integer product-sum IS the selected SAD."""
     na = 2 * i + 3
-    if not _ONEHOT_SELECT:  # take+where unroll (the A/B loser, kept probeable)
-        outs = []
-        for d in range(3):
-            acc = None
-            for a0 in range(na):
-                take = xp.take(grid, a0, axis=grid.ndim - axis_from_end)
-                m = c + d + i == a0
-                mb = m.reshape((-1,) + (1,) * (take.ndim - 1))
-                acc = take if acc is None else xp.where(mb, take, acc)
-            outs.append(acc)
-        return xp.stack(outs, axis=grid.ndim - axis_from_end)
     oh = ((c[:, None, None] + xp.arange(3)[None, :, None] + i)
           == xp.arange(na)[None, None, :]).astype(grid.dtype)  # (S, 3, na)
     if axis_from_end == 2:  # grid (S, nref, na, B) -> (S, nref, 3, B)
@@ -558,23 +474,7 @@ def _select_axis_fme(grid, c, par, i: int, k: int, o_lo: int, pair_axis: int, xp
     (_fme_off with the seed parity ``par``); select the (q, o - o_lo) entry
     of the (2, no) axis pair starting at ``pair_axis``.  c, par (S,) traced.
 
-    One-hot contraction over the (2, no) pair (see _select_axis_wpel: the
-    old 2*(2i+1)*3 take+where unroll dominated the scan body's fusion
-    count).  Exact: integer 0/1 weights, exactly one match per (s, d)."""
-    if not _ONEHOT_SELECT:  # take+where unroll (the A/B loser, kept probeable)
-        outs = []
-        for d in range(3):
-            acc = None
-            for p in (0, 1):
-                for c0 in range(-i, i + 1):
-                    q, o = _fme_off(p, c0 + d - 1, k)
-                    take = xp.take(xp.take(grid, o - o_lo, axis=pair_axis + 1), q,
-                                   axis=pair_axis)
-                    m = (par == p) & (c == c0)
-                    mb = m.reshape((-1,) + (1,) * (take.ndim - 1))
-                    acc = take if acc is None else xp.where(mb, take, acc)
-            outs.append(acc)
-        return xp.stack(outs, axis=pair_axis)
+    One-hot contraction over the (2, no) pair (see _select_axis_wpel).  Exact: integer 0/1 weights, exactly one match per (s, d)."""
     no = grid.shape[pair_axis + 1]
     oh = _fme_onehot(c, par, i, k, o_lo, no, xp).astype(grid.dtype)  # (S,3,2,no)
     if pair_axis == 2:   # grid (S, nref, 2, no, 2, no) -> (S, nref, 3, 2, no)
@@ -627,47 +527,8 @@ def eval_chain(wide, curs, g0, xs, ys, n: int, k: int, dims, fme: bool, nvalid,
     return xp.stack(mvs, axis=0)
 
 
-# ---------------- kernel-friendly (flat, lane-major) chain-eval twin -------
-#
-# me_pallas.rowscan_pass runs the WHOLE sweep pass inside one Pallas kernel
-# (per-segment DMA waves replacing the slice-gather, one invocation per pass
-# instead of one XLA scan step per column group).  eval_chain's stacked /
-# 6D-transpose formulation lowers badly under Mosaic (stacks MATERIALIZE in
-# VMEM instead of fusing, >2D transposes relayout), so the kernel uses this
-# twin: candidate grids built position-by-position into a TRAILING-LANE flat
-# axis, selects as arithmetic one-hot mask-sums over that axis, and pick9's
-# argmin as a min + first-match-iota reduction — all ops on <= 4D arrays with
-# the large axis last.  Bit-exactness vs eval_chain is pinned by
-# tests/test_fastme.py (same int32 sums in a different order — associativity
-# is exact, no overflow: SAD <= 16*16*255 << 2^31).
-
-
-def interleave_planes(planes, xp):
-    """(4*nref, H, W) FME parity planes -> (nref, H, 4W) lane-interleaved:
-    out[r, h, 4*w + p] = planes[4*r + p, h, w], p = 2*qy + qx (the
-    _win16_select plane convention).
-
-    Why: a (P, rows, cols) window DMA costs one HBM strip per (plane, row) —
-    128 strips for the 4-parity (32, 256) fetch, and strip count IS the
-    measured per-block cost (~1 us).  Interleaved, the same window is
-    (rows, 4*cols) with all four parities adjacent on lanes: 32 strips."""
-    P, H, W = planes.shape
-    return planes.reshape(P // 4, 4, H, W).transpose(0, 2, 3, 1).reshape(P // 4, H, 4 * W)
-
-
-def _idx0(a, i: int, xp):
-    """a[i] along axis 0 as a STATIC slice+squeeze — jnp's int getitem lowers
-    through dynamic_slice, which Mosaic has no rule for; every kernel-shared
-    function must index this way."""
-    if xp is np:
-        return a[i]
-    import jax
-
-    return jax.lax.index_in_dim(a, i, 0, keepdims=False)
-
-
 def _col(a, j: int, xp):
-    """a[:, j] as a STATIC slice+squeeze (see _idx0 — Mosaic-safe)."""
+    """a[:, j] as a static slice+squeeze."""
     if xp is np:
         return a[:, j]
     import jax
@@ -675,217 +536,11 @@ def _col(a, j: int, xp):
     return jax.lax.index_in_dim(a, j, 1, keepdims=False)
 
 
-def _biota(xp, shape, dim):
-    """broadcasted int32 iota along ``dim`` — Mosaic rejects 1D jnp.arange
-    inside kernels; lax.broadcasted_iota is the supported spelling."""
-    if xp is np:
-        idx = np.arange(shape[dim], dtype=np.int32)
-        return np.broadcast_to(idx.reshape([-1 if d == dim else 1 for d in range(len(shape))]), shape)
-    import jax
-
-    return jax.lax.broadcasted_iota(xp.int32, shape, dim)
-
-
-def _colk(a, j: int, xp):
-    """a[:, j:j+1] — the keepdims column slice ((S, 1), never a reshape of a
-    1-D vector: Mosaic cannot shape-cast (S,) into (S, 1, ...)."""
-    if xp is np:
-        return a[:, j : j + 1]
-    import jax
-
-    return jax.lax.slice_in_dim(a, j, j + 1, axis=1)
-
-
-def _flat_argmin9(sads9, g, xp):
-    """pick9 on lane-flat candidates: sads9 (S, nref*9) int32 with lane index
-    ref*9 + dxi*3 + dyi (exactly pick9's transpose(0,1,3,2) scan order —
-    ref-major, dx, dy, strict-first-improvement).  Returns pick9's
-    (mv, sad, dyi, dxi, ok) with the scalars kept (S, 1) — every array in
-    this module's _flat code is 2-D with S on the SUBLANE axis (the Mosaic
-    layout constraint: per-segment 1-D vectors cannot broadcast over
-    higher-rank tiles)."""
-    S, G = sads9.shape
-    best = xp.min(sads9, axis=-1, keepdims=True)            # (S, 1)
-    iota = _biota(xp, (S, G), 1)
-    kidx = xp.min(xp.where(sads9 == best, iota, G), axis=-1, keepdims=True)
-    ref_i = (kidx // 9).astype(xp.int32)
-    dxi = ((kidx % 9) // 3).astype(xp.int32)
-    dyi = (kidx % 3).astype(xp.int32)
-    ok = best != _INF32                                     # (S, 1)
-    mv = xp.where(
-        ok,
-        xp.concatenate([_colk(g, 0, xp) + dxi - 1, _colk(g, 1, xp) + dyi - 1,
-                        ref_i], axis=1),
-        g,
-    ).astype(xp.int32)
-    sad = xp.where(ok, best, _INF32).astype(xp.int32)
-    return mv, sad, dyi, dxi, ok
-
-
-def _flat_valid9(g, X, Y, n: int, dims, nref: int, nvalid, xp):
-    """_cand_valid in the flat lane order (S, nref*9), idx = ref*9+dxi*3+dyi.
-    X, Y: (S, 1) block origins in search coordinates.  Returns int32 0/1 —
-    Mosaic cannot concatenate i1 vregs (invalid vector register cast)."""
-    H, W = dims
-    gx, gy = _colk(g, 0, xp), _colk(g, 1, xp)
-    cols = []
-    for dxi in range(3):
-        px = X + gx + dxi - 1
-        okx = (px >= 0) & (px < W - n) & (px + 2 * n >= 0) & (px + 2 * n < W - n)
-        for dyi in range(3):
-            py = Y + gy + dyi - 1
-            oky = (py >= 0) & (py < H - n) & (py + 2 * n >= 0) & (py + 2 * n < H - n)
-            cols.append((okx & oky).astype(xp.int32))       # (S, 1)
-    ok9 = xp.concatenate(cols, axis=1)                      # (S, 9) [dxi, dyi]
-    outs = []
-    for r in range(nref):
-        outs.append(ok9 if nvalid is None else
-                    xp.where(r < nvalid, ok9, 0))
-    return xp.concatenate(outs, axis=1)                     # (S, nref*9)
-
-
-def _fme_flat_grid(wI_r, cur_i, i: int, n: int, k: int, o_lo: int, no: int, xp):
-    """FME candidate SADs over ONE ref's interleaved wide window, lane-flat:
-    (S, no*no*4) with idx = (oy*no + ox)*4 + (2*qy + qx), entry = SAD of
-    parity plane (qy, qx) at plane offsets (o_lo+oy, o_lo+ox) for column i.
-    wI_r (S, R, 4C) int32 interleaved (interleave_planes layout); cur_i
-    (S, n, 4n) int32 with pixels replicated over the 4 parity lanes.
-
-    The per-parity fold over interleaved lanes (sum of every 4th lane) runs
-    as ONE exact f32 matmul per position — f32 is exact below 2^24 and the
-    row-folded partials are <= 16*255; lane-splitting reshapes and strided
-    lane slices both lower poorly (or not at all) under Mosaic."""
-    # built from iotas, not an np constant: pallas_call rejects captured
-    # constant arrays inside kernels
-    fold = (_biota(xp, (4 * n, 4), 0) % 4 == _biota(xp, (4 * n, 4), 1)
-            ).astype(xp.float32)
-    cells = []
-    for oy in range(no):
-        r0 = o_lo + oy
-        for ox in range(no):
-            l0 = 4 * (n * i + o_lo + ox)
-            d = xp.abs(wI_r[:, r0 : r0 + n, l0 : l0 + 4 * n] - cur_i)
-            d2 = d.sum(axis=1)                              # (S, 4n) sublane fold
-            if xp is np:
-                s4 = (d2.astype(np.float32) @ fold).astype(np.int32)
-            else:
-                import jax
-
-                # HIGHEST precision: the default MXU path truncates the
-                # f32 operands to one bf16 pass — d2 needs 12 mantissa bits
-                # (<= 16*255) and near-tie SADs flipped argmins at S=135
-                # (on-chip parity debug, round-5); the 3-pass decomposition
-                # is exact for these ranges
-                s4 = jax.numpy.matmul(
-                    d2.astype(xp.float32), fold,
-                    precision=jax.lax.Precision.HIGHEST).astype(xp.int32)
-            cells.append(s4)
-    return xp.concatenate(cells, axis=1)                    # (S, no*no*4)
-
-
-def _wpel_flat_grid(wide_r, cur, i: int, n: int, k: int, xp):
-    """Whole-pel candidate SADs for ONE ref, lane-flat: (S, na*na) with idx =
-    a*na + b = SAD at window start (k-i-1+a, n*i + k-i-1+b) — the
-    _sad_grid_wpel cell in builder order.  wide_r (S, R, C) int32."""
-    na = 2 * i + 3
-    o0 = k - i - 1
-    cells = []
-    for a in range(na):
-        for b in range(na):
-            sl = wide_r[:, o0 + a : o0 + a + n, n * i + o0 + b : n * i + o0 + b + n]
-            d = xp.abs(sl - cur).sum(axis=2)                # (S, n)
-            cells.append(d.sum(axis=1, keepdims=True))      # (S, 1)
-    return xp.concatenate(cells, axis=1)                    # (S, na*na)
-
-
-def eval_chain_flat(wide, curs, g0, xs, ys, n: int, k: int, dims, fme: bool,
-                    nvalid, colmask, xp):
-    """eval_chain's bit-exact flat twin (see module comment above).
-
-    wide: (S, nref, R, 4C) int32 INTERLEAVED under FME (interleave_planes
-    window layout), (S, nref, R, C) int32 whole-pel — both based at
-    _wide_base(g0).  curs: (k, S, n, 4n) int32 with pixels replicated over
-    parity lanes under FME (xp.repeat(cur, 4, -1)), plain (k, S, n, n)
-    whole-pel.  xs (k, S, 1) / ys (S, 1) block origins in UNSCALED pixels —
-    2-D keepdims layout (see _flat_argmin9).  Everything else as
-    eval_chain.  Returns mvs (k, S, 3)."""
-    S = wide.shape[0]
-    nref = wide.shape[1]
-    scale = 2 if fme else 1
-    if fme:
-        pay = _colk(g0, 1, xp) % 2                          # (S, 1)
-        pax = _colk(g0, 0, xp) % 2
-    g = g0
-    cy = xp.zeros((S, 1), xp.int32)
-    cx = xp.zeros((S, 1), xp.int32)
-    mvs = []
-    for i in range(k):
-        cur_i = _idx0(curs, i, xp)                          # (S, n, nc)
-        xs_i = _idx0(xs, i, xp)                             # (S, 1)
-        if fme:
-            offs = [_fme_off(p, e, k)[1] for p in (0, 1) for e in range(-(i + 1), i + 2)]
-            o_lo, o_hi = min(offs), max(offs)
-            no = o_hi - o_lo + 1
-            npos = no * no * 4
-
-            def cand_idx(dyi, dxi):
-                # (qy, oy) = _fme_off(pay, cy + dy - 1, k) arithmetically
-                ty = pay + cy + dyi - 1
-                qy = ty % 2
-                oy = (ty - qy) // 2 + (k - pay + 1) // 2 - o_lo
-                tx = pax + cx + dxi - 1
-                qx = tx % 2
-                ox = (tx - qx) // 2 + (k - pax + 1) // 2 - o_lo
-                return (oy * no + ox) * 4 + 2 * qy + qx     # (S, 1)
-        else:
-            na = 2 * i + 3
-            npos = na * na
-
-            def cand_idx(dyi, dxi, na=na):
-                return (cy + dyi - 1 + i + 1) * na + (cx + dxi - 1 + i + 1)
-
-        # per-candidate one-hot gather from each ref's flat grid: exactly one
-        # position matches per (s, candidate) by construction
-        idxs = [[cand_idx(dyi, dxi) for dyi in range(3)] for dxi in range(3)]
-        iota = _biota(xp, (S, npos), 1)
-        cols = []
-        for r in range(nref):
-            if fme:
-                grid_r = _fme_flat_grid(_ref_plane(wide, r, xp), cur_i, i, n,
-                                        k, o_lo, no, xp)
-            else:
-                grid_r = _wpel_flat_grid(_ref_plane(wide, r, xp), cur_i, i, n,
-                                         k, xp)
-            for dxi in range(3):                            # pick9 scan order
-                for dyi in range(3):
-                    oh = (idxs[dxi][dyi] == iota).astype(grid_r.dtype)
-                    cols.append((grid_r * oh).sum(axis=1, keepdims=True))
-        sads9 = xp.concatenate(cols, axis=1)                # (S, nref*9)
-        valid = _flat_valid9(g, xs_i * scale, ys * scale, n, dims, nref, nvalid, xp)
-        valid = xp.where(colmask[i], valid, 0)
-        mv, _, dyi, dxi, ok = _flat_argmin9(
-            xp.where(valid != 0, sads9, _INF32), g, xp)
-        mvs.append(mv)
-        cy = cy + xp.where(ok, dyi - 1, 0)
-        cx = cx + xp.where(ok, dxi - 1, 0)
-        g = mv
-    return xp.stack(mvs, axis=0)
-
-
-def _ref_plane(wide, r: int, xp):
-    """wide[:, r] as a static slice+squeeze (Mosaic-safe)."""
-    if xp is np:
-        return wide[:, r]
-    import jax
-
-    return jax.lax.index_in_dim(wide, r, 1, keepdims=False)
-
-
 def confirm_windows_from_stack(wideT, g_fin, n: int, k: int, L: int, S: int,
-                               fme: bool, xp, lane_mult: int = 1):
+                               fme: bool, xp):
     """Confirm-pass regions from the FINAL sweep pass's stacked wide windows
     — bit-identical to ``window_gather(planes, *_region_base(g_fin), n+2)``
-    without re-gathering (the all-blocks one-hot gather is ~3 ms at 720p).
+    without re-gathering all blocks.
 
     The while-loop exits only after a pass whose seeds equal the converged
     seeds, so the last pass's chunk seeds are exactly g_fin at each chunk's
@@ -900,16 +555,9 @@ def confirm_windows_from_stack(wideT, g_fin, n: int, k: int, L: int, S: int,
     and the wide window's (n+2k) / (n+k+1) extents fit the extreme offsets
     exactly.  wideT (Lp, S, P, wr, wc) int32 stacked by the scan; g_fin
     (S*L, 3) converged MVPs in chain order (segment-major).  Returns
-    (S*L, P, n+2, n+2) in the same chain order.
-
-    ``lane_mult`` = m serves LANE-INTERLEAVED stacks (the rowscan_pass
-    kernel's int16 (Lp, S, nref, wr, m*wc) output, m = 4 parities/lane):
-    column arithmetic scales by m, rows are untouched, and the caller
-    de-interleaves the (S*L, nref, nw, m*nw) result — 4.5x fewer bytes
-    through the relayout transpose than de-interleaving the full stack."""
+    (S*L, P, n+2, n+2) in the same chain order."""
     Lp = wideT.shape[0]
     P = wideT.shape[2]
-    m_ = lane_mult
     nw = n + 2
     g = g_fin.reshape(S, L, 3)
     padc = Lp * k - L
@@ -933,17 +581,16 @@ def confirm_windows_from_stack(wideT, g_fin, n: int, k: int, L: int, S: int,
         racc = None
         for a0 in range(na):
             m = (ay[:, :, i] == a0)[:, :, None, None, None]
-            sl = wideT[:, :, :, a0 : a0 + nw,
-                       m_ * (n * i) : m_ * (n * i + na - 1 + nw)]
+            sl = wideT[:, :, :, a0 : a0 + nw, n * i : n * i + na - 1 + nw]
             racc = sl if racc is None else xp.where(m, sl, racc)
         cacc = None
         for b0 in range(na):
             m = (bx[:, :, i] == b0)[:, :, None, None, None]
-            sl = racc[..., m_ * b0 : m_ * (b0 + nw)]
+            sl = racc[..., b0 : b0 + nw]
             cacc = sl if cacc is None else xp.where(m, sl, cacc)
-        cols.append(cacc)  # (Lp, S, P, nw, m_*nw)
-    wins = xp.stack(cols, axis=1).reshape(Lp * k, S, P, nw, m_ * nw)[:L]
-    return wins.swapaxes(0, 1).reshape(S * L, P, nw, m_ * nw)
+        cols.append(cacc)  # (Lp, S, P, nw, nw)
+    wins = xp.stack(cols, axis=1).reshape(Lp * k, S, P, nw, nw)[:L]
+    return wins.swapaxes(0, 1).reshape(S * L, P, nw, nw)
 
 
 def _ref_select(w, ref, xp):

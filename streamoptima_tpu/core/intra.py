@@ -61,11 +61,11 @@ def intra_search_mode0(cur, bs: int, sr: int, canvas_w: int, vbs: bool, xp):
     # pad so shifted windows exist for all dx and canvas columns
     pad_ref = xp.pad(c32, ((0, 0), (sr, canvas_w - w + sr)), constant_values=128)
 
-    # Per-dx column SADs at sub-row-band granularity.  Round-5: the original
-    # prefix-sum form (per-dx cumsum over w + take_along_axis gathers at the
-    # block columns) measured 61 ms of the 201 ms 4K intra step — but every
-    # read is BLOCK-ALIGNED with a length t(dx) that is STATIC per dx, so
-    # the per-block partial sums are plain reshape-group static-slice sums:
+    # Per-dx column SADs at sub-row-band granularity.  A prefix-sum form
+    # (per-dx cumsum over w + take_along_axis gathers at the block columns)
+    # is not needed: every read is BLOCK-ALIGNED with a length t(dx) that is
+    # STATIC per dx, so the per-block partial sums are plain reshape-group
+    # static-slice sums:
     # no cumsum chains, no gathers, bit-identical int32 totals.
     # int16 band sums: |diff| <= 255 and an s-row band sum <= 8*255 = 2040,
     # so the 33 whole-frame abs-diff passes (the search's only large-array
@@ -164,8 +164,7 @@ def intra_residuals_mode0(cur, mv, sub_mv, bs: int, xp, sr: int | None = None):
     With ``sr`` given on the JAX path, the windows are assembled by a masked
     select over the sr+1 possible GLOBAL COLUMN SHIFTS of the frame instead
     of an element gather: the window of the block at x with mv=m reads pixel
-    column x' from frame[:, x'+m] — one static slice per shift.  (The XLA
-    gather form ran at ~2 GiB/s and cost ~19 ms per 720p intra frame.)
+    column x' from frame[:, x'+m] — one static slice per shift.
     """
     h, w = cur.shape
     s = bs // 2
@@ -251,9 +250,8 @@ def intra_reconstruct_mode0(residual_full, residual_quads, split, mv, sub_mv, h:
     (caller applies the uint8 cast).
 
     ``sr`` (the search range bounding |mv|) switches the JAX scan step from a
-    per-step element gather (~145 us/step on TPU, 11.6 ms per 720p intra
-    frame) to a dynamic-sliced region + masked select over the sr+1 possible
-    shifts.
+    per-step element gather to a dynamic-sliced region + masked select over
+    the sr+1 possible shifts.
     """
     s = bs // 2
     nbr, nbc = h // bs, w // bs
@@ -395,8 +393,7 @@ def _intra_reconstruct_jax_wavefront(rf, rq, sp, mvr, smv, h, w, bs, sr):
     pass recomputes all blocks from the previous iterate, with the >= x
     half of each block's read region pinned to the 128 fill (the sequential
     semantics read pre-write state right of the frontier).  The 80-step
-    720p scan (~145 us/step of tiny serialized ops) becomes 2 whole-frame
-    passes.  Values carry unwrapped int32 exactly like the scans: wrap at
+    720p scan of tiny serialized ops becomes 2 whole-frame passes.  Values carry unwrapped int32 exactly like the scans: wrap at
     the end == wrap before every read, mod 256.
     """
     import jax.numpy as jnp

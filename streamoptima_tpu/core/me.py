@@ -62,7 +62,8 @@ def fme_upsample(frame, xp, wrap_row_pass: bool | None = None):
         out[1::2, 0::2] = col_half
         out[1::2, 1::2] = quad
         return out
-    # interleave via stack+reshape (strided .at[] scatters lower poorly on TPU)
+    # interleave via stack+reshape (a strided .at[] scatter lowers to a
+    # general scatter)
     even_rows = xp.concatenate(
         [xp.stack([f[:, :-1], row_half], axis=2).reshape(h, 2 * (w - 1)), f[:, -1:]], axis=1
     )  # (h, 2w-1)
@@ -80,8 +81,7 @@ def fme_parity_planes(frame, xp, wrap_row_pass: bool | None = None):
     Plane (py, px) equals ``fme_upsample(frame)[py::2, px::2]`` zero-padded to
     (h, w) — but produced by pure elementwise arithmetic on the (h, w) frame.
     Materializing the (2h-1, 2w-1) upsample and strided-slicing it back lowers
-    to XLA gathers at ~2 GiB/s on TPU (measured: 38 ms/frame at 720p, the
-    single largest cost of the FME encode path); this form is ~free.
+    to XLA gathers; this form is elementwise only.
 
     Returns (4, h, w) int32 ordered [p00, p01, p10, p11] (py-major).
     """
@@ -122,7 +122,8 @@ def sad_maps(cur, ref, sr: int, sub_bs: int, stride: int, xp, row_offset=0, also
     additionally sums 2x2 quads into (2*sub_bs)-block SADs — computed inside
     the dy loop where the partial sums are register-resident (summing the
     materialized sub map afterwards forces XLA into a layout-rotating copy
-    of the whole candidate buffer; measured dominant at 720p).
+    of the whole candidate buffer; found dominant at 720p on a TPU, not yet
+    measured on the H100).
     """
     h, w = cur.shape
     nbr, nbc = h // sub_bs, w // sub_bs
@@ -157,11 +158,11 @@ def sad_maps(cur, ref, sr: int, sub_bs: int, stride: int, xp, row_offset=0, also
 
     # serial over dy (lax.map), static unroll over dx per step: each dx is a
     # static column slice of the row band (an XLA view, no gather), so the
-    # abs-diff + blocked reduction fuse into one VPU pass per dx.  Block sums
-    # <= 255*sub_bs^2 <= 16320 fit int16 for sub_bs <= 8.  (An MXU 0/1-
-    # aggregation matmul form was tried and rejected: the TPU accumulates
-    # bf16 matmuls in reduced precision regardless of preferred_element_type,
-    # breaking bit-exactness — measured max error 8 on 8x8 block sums.)
+    # abs-diff + blocked reduction fuse into one elementwise pass per dx.
+    # Block sums <= 255*sub_bs^2 <= 16320 fit int16 for sub_bs <= 8.  (A 0/1-
+    # aggregation matmul form was tried and rejected: a reduced-precision
+    # matmul (bf16, TF32) may round its sums regardless of
+    # preferred_element_type, breaking bit-exactness.)
     c16 = cur.astype(xp.int16)
     rp16 = rp.astype(xp.int16)
     sum_dtype = xp.int16 if sub_bs <= 8 else xp.int32
@@ -204,9 +205,10 @@ def full_search_materialized(cur, refs, sr: int, bs: int, sub_bs: int, stride: i
     """Full search via materialized candidate maps + exact-tie-break argmin.
 
     Same contract and bit-identical results as full_search_fused; the
-    materialized form has lower serial latency on TPU (measured 37 vs 55
-    ms/frame at 720p), the fused form avoids the (ndy, ndx, nbr2, nbc2)
-    intermediate.  Works for NumPy (oracle) and JAX backends.
+    materialized form is the default of the per-frame step, the fused form
+    avoids the (ndy, ndx, nbr2, nbc2) intermediate (the default inside the
+    GOP scan).  Which wins on the H100 is not yet measured.  Works for NumPy
+    (oracle) and JAX backends.
 
     ``grid_dims``: the FULL reference-grid (H, W) for validity when ``refs``
     is only a halo band of the frame (row-sharded tiles exchanging
@@ -361,9 +363,8 @@ def full_search_fused(cur, refs, sr: int, bs: int, sub_bs: int, stride: int, fme
                     win = rows[:, dxi + pad - sr : dxi + pad - sr + stride * (w - 1) + 1 : stride]
                 diff = abs(win - c16)
                 # NOTE: the single strided reduce is kept here deliberately —
-                # inside the GOP scan XLA fuses this form best (measured; the
-                # two-stage minor-axis reduce that wins in sad_maps is ~2x
-                # slower in this scan context)
+                # it is the form the GOP scan was tuned with (not yet
+                # re-measured on the H100)
                 ss = diff.reshape(nbr2, sub_bs, nbc2, sub_bs).astype(sum_dtype).sum(axis=(1, 3)).astype(xp.int32)
                 fs = ss.reshape(nbr, 2, nbc, 2).sum(axis=(1, 3)).reshape(-1)  # (nb,)
                 sec = ((((l1[dyi, dxi].astype(xp.int32) << 3) | refi) << 8 | dxi) << 8) | dyi

@@ -1,10 +1,10 @@
 """2D DCT-II / IDCT transforms.
 
 The reference applies ``scipy.fftpack.dct(..., norm='ortho')`` per block and
-rounds to the nearest integer (Encoder.py:779-784, :810-817).  On TPU a float
-transform cannot be made backend-deterministic (TPU float64 is a double-double
-emulation whose rounding differs from IEEE CPU float64), so this module offers
-three implementations with precisely defined semantics:
+rounds to the nearest integer (Encoder.py:779-784, :810-817).  A float
+transform cannot be made backend-deterministic (accelerators reorder sums,
+and a GPU may run an f32 matmul in TF32), so this module offers three
+implementations with precisely defined semantics:
 
 ``dct2_int`` / ``idct2_int``
     The *native* transform: an exact fixed-point integer DCT, the same design
@@ -12,8 +12,9 @@ three implementations with precisely defined semantics:
     is rounded to a 12-bit fixed-point integer matrix ``A = round(D * 2**12)``
     and the two-pass product is evaluated entirely in int32 with exact
     round-half-even rescaling.  Every intermediate is proven to fit int32 (see
-    bounds in the code), so the result is bit-identical on CPU, TPU and GPU and
-    jit/vmap-friendly (int matmuls run on the MXU/VPU).
+    bounds in the code), so the result is bit-identical on CPU and GPU and
+    jit/vmap-friendly (integer dot_generals; no tensor-core path is involved,
+    so no matmul precision setting can change a value).
 
 ``dct2_f64`` / ``idct2_f64``
     Host-side (NumPy) float64 matmul transform.  Matches scipy's values except
@@ -29,6 +30,7 @@ All functions operate on batched blocks shaped ``(..., n, n)``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -63,16 +65,19 @@ def _round_half_even_from_parts(q_hi, inner, inner_bits: int):
 
 
 def _einsum(xp, spec, a, b):
-    """Exact int32 einsum (NumPy: via int64; JAX: native int dot_general).
-
-    An alternative decomposing the product into 8-bit operand parts evaluated
-    as exact f32 MXU matmuls (Precision.HIGHEST) was tried and reverted: it
-    is bit-identical but 25% slower end-to-end on TPU v5e — the (16, 16)
-    per-block int matmuls fuse well enough that the MXU detour loses.
-    """
+    """Exact int32 einsum (NumPy: via int64; JAX: native int dot_general)."""
     if xp is np:
         return np.einsum(spec, a.astype(np.int64), b.astype(np.int64)).astype(np.int32)
     return xp.einsum(spec, a, b)
+
+
+def _stage(xp):
+    """Profiler scope naming the transform's ops on the JAX path."""
+    if xp is np:
+        return contextlib.nullcontext()
+    import jax
+
+    return jax.named_scope("int_dct")
 
 
 def dct2_int(x, xp=None):
@@ -83,13 +88,18 @@ def dct2_int(x, xp=None):
 
     Three int32 matmuls with a 17-bit matrix ``A = round(D * 2**17)``; every
     intermediate is proven below to fit int32, so results are bit-identical
-    across CPU/TPU/GPU.  Worst-case deviation from the exact real transform
+    across CPU and GPU.  Worst-case deviation from the exact real transform
     is ~0.15, so values round identically to scipy's except within ~0.15 of a
-    half-integer boundary.  int64 is avoided deliberately: XLA:TPU cannot
-    lower s64 dot_general.
+    half-integer boundary.  int64 is avoided deliberately: 64-bit integer
+    dot_generals are not lowered by every XLA backend.
     """
     if xp is None:
         xp = np if isinstance(x, np.ndarray) else _jnp()
+    with _stage(xp):
+        return _dct2_int(x, xp)
+
+
+def _dct2_int(x, xp):
     n = x.shape[-1]
     a = _const(xp, dct_matrix_fixed(n))
     # pass 1: M = A @ X, scale 2**17. |M| <= n*maxA*512 <= 16*46341*512 = 2**28.5
@@ -119,6 +129,11 @@ def idct2_int(t, xp=None):
     """
     if xp is None:
         xp = np if isinstance(t, np.ndarray) else _jnp()
+    with _stage(xp):
+        return _idct2_int(t, xp)
+
+
+def _idct2_int(t, xp):
     n = t.shape[-1]
     a = _const(xp, dct_matrix_fixed(n))
     # split the (14-bit) input so pass 1 fits int32

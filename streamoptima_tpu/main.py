@@ -46,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--two-pass", action="store_true")
     p.add_argument("--intra-thresh", type=int, default=70000)
     p.add_argument("--engine", default="jax", choices=("jax", "compat"))
-    p.add_argument("--mesh", action="store_true", help="multi-chip encode over all devices (engine=jax)")
+    p.add_argument("--mesh", action="store_true", help="multi-device encode over all devices (engine=jax)")
     p.add_argument("--mv-file", default="files/mvs_per_frame.txt")
     p.add_argument("--residual-file", default="files/res_per_frame.txt")
     p.add_argument("--binary", default=None, metavar="PATH",
@@ -61,6 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     t0 = time.time()
+    if args.engine == "jax":
+        from streamoptima_tpu.runtime import setup_compile_cache
+
+        setup_compile_cache()
 
     if args.synthetic or not args.input:
         from streamoptima_tpu.utils import synthetic_clip

@@ -1,7 +1,7 @@
 // Native host runtime: diagonal-scan RLE entropy coding + residual-line
 // serialization.
 //
-// The TPU device produces fixed-shape quantized-coefficient arrays; turning
+// The device produces fixed-shape quantized-coefficient arrays; turning
 // them into the reference's variable-length text bitstream (entropy_encoder_
 // frame, Encoder.py:1522-1542, RLE per block Encoder.py:1086-1131) is pure
 // host work and the slowest non-device stage of the pipeline when done in
@@ -314,8 +314,8 @@ int64_t encode_mv_line(int32_t frame_type, int32_t rc_active,
 // overflow, item count != nb) returns -1 and the caller falls back to the
 // Python parser, which raises the same errors the list path always raised —
 // so corrupt streams keep their loud behavior and well-formed streams parse
-// at C speed (the Python residual parse measured ~370 ms/frame at 720p
-// against ~2 ms device decode).
+// at C speed (the Python residual parse costs hundreds of ms per 720p
+// frame on the host).
 
 namespace {
 

@@ -1,6 +1,6 @@
 """Timing + tracing instrumentation.
 
-TPU twin of the reference's manual timing harness (per-ParallelMode
+Device twin of the reference's manual timing harness (per-ParallelMode
 intra/inter second lists, Encoder.py:62-69, :494-498, :1265-1267, :1777-1782,
 printed at :1897) and its only observability surface.  Here:
 
@@ -9,8 +9,7 @@ printed at :1897) and its only observability surface.  Here:
   this re-runs jitted steps with block_until_ready instead of polluting the
   production encode loop with syncs).
 - ``trace``: jax.profiler trace context (XProf/TensorBoard format) for
-  per-kernel breakdowns.  NOTE: may hang on tunneled/remote-compile
-  backends; intended for directly-attached chips.
+  per-kernel breakdowns.
 """
 from __future__ import annotations
 

@@ -225,3 +225,24 @@ def test_config_rejects_tiebreak_packing_overflow():
         CodecConfig(search_range=128, **base)
     with pytest.raises(ValueError, match="search_range"):
         CodecConfig(search_range=0, **base)
+
+
+@pytest.mark.parametrize("qp", range(13))
+def test_int_transform_exact_at_residual_extremes(qp):
+    """The exact int32 transform at the +-255 residual extremes (every DCT
+    basis sign pattern, constant blocks, random signs) for every QP: the
+    JAX int32 path equals the NumPy int64 path bit for bit — no int32
+    overflow anywhere — for 16x16 blocks at qp and 8x8 quads at qp-1, and
+    stays within one unit of the float64 transform."""
+    import jax.numpy as jnp
+
+    from chip_smoke import extreme_blocks
+
+    for n, q in ((16, qp), (8, Q.qpm1(qp))):
+        x = extreme_blocks(2 + 2 * n * n + 40, n, seed=qp)
+        t_np = T.dct2_int(x, xp=np)
+        np.testing.assert_array_equal(np.asarray(T.dct2_int(jnp.asarray(x))), t_np)
+        assert np.abs(t_np - T.dct2_f64(x)).max() <= 1
+        rs = np.asarray(Q.rescale(Q.quantize(t_np.astype(np.int64), q), q)).astype(np.int32)
+        np.testing.assert_array_equal(np.asarray(T.idct2_int(jnp.asarray(rs))),
+                                      T.idct2_int(rs, xp=np))

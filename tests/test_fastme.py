@@ -118,115 +118,6 @@ def test_eval_chain_matches_sequential_eval9(fme, k):
 
 
 @pytest.mark.parametrize("fme", [False, True])
-@pytest.mark.parametrize("k", [1, 2, 4])
-def test_eval_chain_flat_matches_eval_chain(fme, k):
-    """The kernel-friendly flat twin (lane-major grids, arithmetic one-hot
-    candidate gather, min+iota argmin, interleaved FME windows) must equal
-    eval_chain bit-for-bit over the same chunk walk — wild seeds, edge
-    seeds, multi-ref, padded tails included."""
-    cur, refs, bx, by, g, (nbr, nbc) = _setup(fme, seed=5)
-    bs = 16
-    n = bs
-    planes = FM.plane_stack(jnp.asarray(refs), fme, jnp)
-    nref = refs.shape[0]
-    dims = (2 * cur.shape[0] - 1, 2 * cur.shape[1] - 1) if fme else cur.shape
-    cur_b = jnp.asarray(cur).reshape(nbr, bs, nbc, bs).swapaxes(1, 2).reshape(-1, bs, bs)
-    S = nbr
-    seeds = g.reshape(nbr, nbc, 3)[:, 0]
-    curT = cur_b.reshape(nbr, nbc, n, n).swapaxes(0, 1)
-    xsT = jnp.asarray(bx).reshape(nbr, nbc).swapaxes(0, 1).astype(jnp.int32)
-    ys = jnp.asarray(by).reshape(nbr, nbc)[:, 0].astype(jnp.int32)
-    Lp = -(-nbc // k)
-    padc = Lp * k - nbc
-    curK = jnp.concatenate([curT, jnp.zeros((padc, S, n, n), curT.dtype)])
-    xsK = jnp.concatenate([xsT, jnp.broadcast_to(xsT[-1:], (padc, S))])
-    wr, wc = FM.wide_window_spec(n, k, fme)
-    gg_a = gg_b = seeds
-    for c in range(Lp):
-        cm = jnp.asarray((np.arange(c * k, (c + 1) * k) < nbc))
-        by0, bx0 = FM._wide_base(gg_a, ys, xsK[c * k], k, fme, jnp)
-        wide = FM.window_gather(planes, by0, bx0, wr, jnp, nwin_c=wc)
-        mvs_a = FM.eval_chain(wide, curK[c * k : (c + 1) * k], gg_a,
-                              xsK[c * k : (c + 1) * k], ys, n, k, dims, fme,
-                              None, cm, jnp)
-        curs_f = curK[c * k : (c + 1) * k]
-        if fme:
-            # interleaved layout: wI[s, r, row, 4c+p], p = 2*qy + qx
-            wI = (wide.reshape(S, nref, 4, wr, wc)
-                  .transpose(0, 1, 3, 4, 2).reshape(S, nref, wr, 4 * wc))
-            curs_f = jnp.repeat(curs_f, 4, axis=-1)
-        else:
-            wI = wide
-        mvs_b = FM.eval_chain_flat(wI, curs_f, gg_b,
-                                   xsK[c * k : (c + 1) * k][..., None],
-                                   ys[:, None], n, k, dims,
-                                   fme, None, cm, jnp)
-        np.testing.assert_array_equal(np.asarray(mvs_a), np.asarray(mvs_b),
-                                      err_msg=f"chunk {c}")
-        gg_a, gg_b = mvs_a[-1], mvs_b[-1]
-
-
-@pytest.mark.parametrize("fme", [False, True])
-@pytest.mark.parametrize("k", [1, 2, 4])
-def test_rowscan_pass_kernel_matches_eval_chain(fme, k):
-    """me_pallas.rowscan_pass (the whole-pass kernel: per-segment DMA wave,
-    interleaved FME layout, barrel alignment, in-kernel eval_chain_flat)
-    must reproduce the XLA eval_chain group walk bit-for-bit — MVs AND the
-    stacked wide windows (the confirm's input)."""
-    from streamoptima_tpu.core import me_pallas as MP
-
-    cur, refs, bx, by, g, (nbr, nbc) = _setup(fme, seed=9)
-    bs = 16
-    n = bs
-    planes = FM.plane_stack(jnp.asarray(refs), fme, jnp)
-    nref = refs.shape[0]
-    dims = (2 * cur.shape[0] - 1, 2 * cur.shape[1] - 1) if fme else cur.shape
-    cur_b = jnp.asarray(cur).reshape(nbr, bs, nbc, bs).swapaxes(1, 2).reshape(-1, bs, bs)
-    S = nbr
-    seeds = g.reshape(nbr, nbc, 3)[:, 0]
-    curT = cur_b.reshape(nbr, nbc, n, n).swapaxes(0, 1)
-    xsT = jnp.asarray(bx).reshape(nbr, nbc).swapaxes(0, 1).astype(jnp.int32)
-    ys = jnp.asarray(by).reshape(nbr, nbc)[:, 0].astype(jnp.int32)
-    Lp = -(-nbc // k)
-    padc = Lp * k - nbc
-    curK = jnp.concatenate([curT, jnp.zeros((padc, S, n, n), curT.dtype)])
-    xsK = jnp.concatenate([xsT, jnp.broadcast_to(xsT[-1:], (padc, S))])
-    wr, wc = FM.wide_window_spec(n, k, fme)
-    cmK = jnp.asarray((np.arange(Lp * k) < nbc).reshape(Lp, k).astype(np.int32))
-
-    # oracle: the XLA eval_chain walk, stacking the wide windows
-    gg = seeds
-    mv_ref, w_ref = [], []
-    for c in range(Lp):
-        by0, bx0 = FM._wide_base(gg, ys, xsK[c * k], k, fme, jnp)
-        wide = FM.window_gather(planes, by0, bx0, wr, jnp, nwin_c=wc)
-        mvs = FM.eval_chain(wide, curK[c * k : (c + 1) * k], gg,
-                            xsK[c * k : (c + 1) * k], ys, n, k, dims, fme,
-                            None, cmK[c] != 0, jnp)
-        mv_ref.append(np.asarray(mvs))
-        w_ref.append(np.asarray(wide))
-        gg = mvs[-1]
-
-    # kernel (interpret mode)
-    curKk = curK.reshape(Lp, k, S, n, n).astype(jnp.int16)
-    if fme:
-        curKk = jnp.repeat(curKk, 4, axis=-1)
-    prep = MP.pass_prep(planes, wr, wc, fme)
-    mK, wK = MP.rowscan_pass(prep, curKk, xsK[:, :].reshape(Lp, k, S)[:, 0, :].reshape(-1),
-                             xsK.reshape(Lp, k, S), ys, cmK, seeds, n, k, dims,
-                             interpret=True)
-    for c in range(Lp):
-        np.testing.assert_array_equal(np.asarray(mK[c]), mv_ref[c],
-                                      err_msg=f"mvs chunk {c}")
-        wkc = np.asarray(wK[c]).astype(np.int32)  # (S, nref, wr, LW)
-        if fme:
-            # de-interleave back to the window_gather (S, P, wr, wc) layout
-            wkc = (wkc.reshape(S, nref, wr, wc, 4).transpose(0, 1, 4, 2, 3)
-                   .reshape(S, nref * 4, wr, wc))
-        np.testing.assert_array_equal(wkc, w_ref[c], err_msg=f"windows chunk {c}")
-
-
-@pytest.mark.parametrize("fme", [False, True])
 @pytest.mark.parametrize("k", [2, 3, 4])
 def test_confirm_windows_from_stack_matches_gather(fme, k):
     """confirm_windows_from_stack must equal window_gather at
@@ -342,61 +233,11 @@ def test_window_gather_zero_fill_and_chunking():
     np.testing.assert_array_equal(np.asarray(win_c), ref)
 
 
-def test_window_fetch_matches_window_gather():
-    """The Pallas per-block DMA fetch (me_pallas.window_fetch, interpret on
-    CPU) is bit-identical to the one-hot gather for any origin — in-plane,
-    clipped at every edge, and absurdly far out (clamping is exact: origins
-    outside (-nwin, H/W) have no plane overlap and read all zeros)."""
-    from streamoptima_tpu.core import me_pallas as MP
-
-    rng = np.random.default_rng(5)
-    for P, h, w, nwin, nb in ((4, 64, 96, 18, 41), (1, 48, 56, 10, 200), (8, 40, 48, 18, 9)):
-        planes = jnp.asarray(rng.integers(0, 256, (P, h, w)), jnp.bfloat16)
-        by0 = jnp.asarray(np.concatenate(
-            [rng.integers(-40, h + 20, nb - 4), [-(10**6), 10**6, -nwin, h]]), jnp.int32)
-        bx0 = jnp.asarray(np.concatenate(
-            [rng.integers(-40, w + 20, nb - 4), [10**6, -(10**6), w, -nwin]]), jnp.int32)
-        ref = np.asarray(FM.window_gather(planes, by0, bx0, nwin, jnp))
-        got = np.asarray(MP.window_fetch(MP.window_prep(planes, nwin), by0, bx0, nwin,
-                                         interpret=True))
-        np.testing.assert_array_equal(ref, got)
-
-
-def test_window_fetch_wide_matches_window_gather():
-    """Rectangular (lookahead) windows through the Pallas fetch: bit-identical
-    to the one-hot gather at every production wide shape (FME k=4 21x69,
-    whole-pel k=4 24x72, the 128-column limit) and for square reads served
-    by a WIDE prep (the kl=1 confirm sharing a wide prep's padding)."""
-    from streamoptima_tpu.core import me_pallas as MP
-
-    rng = np.random.default_rng(7)
-    for P, h, w, wr, wc, nb in (
-        (4, 64, 96, 21, 69, 23),    # FME k=4 wide shape
-        (1, 80, 120, 24, 72, 37),   # whole-pel k=4 wide shape
-        (2, 40, 160, 16, 128, 9),   # the column-extent limit
-    ):
-        planes = jnp.asarray(rng.integers(0, 256, (P, h, w)), jnp.bfloat16)
-        by0 = jnp.asarray(np.concatenate(
-            [rng.integers(-60, h + 30, nb - 4), [-(10**6), 10**6, -wr, h]]), jnp.int32)
-        bx0 = jnp.asarray(np.concatenate(
-            [rng.integers(-80, w + 30, nb - 4), [10**6, -(10**6), w, -wc]]), jnp.int32)
-        ref = np.asarray(FM.window_gather(planes, by0, bx0, wr, jnp, nwin_c=wc))
-        prep = MP.window_prep(planes, wr, nwin_c=wc)
-        got = np.asarray(MP.window_fetch(prep, by0, bx0, wr, interpret=True, nwin_c=wc))
-        np.testing.assert_array_equal(ref, got)
-        # square fetch through the same wide prep (row extent < the pad)
-        nsq = wr - 3
-        ref_sq = np.asarray(FM.window_gather(planes, by0, bx0, nsq, jnp))
-        got_sq = np.asarray(MP.window_fetch(prep, by0, bx0, nsq, interpret=True))
-        np.testing.assert_array_equal(ref_sq, got_sq)
-
-
 def test_rowscan_fetch_modes_bitwise():
     """Engine-level: fast-ME VBS+FME encodes under every window-fetch mode
-    — 'pallas' (interpret mode on CPU, k=1), 'slice' (clamped dynamic_slice
-    on zero-padded planes, incl. lookahead wide windows), and 'slice' with
-    explicit lookahead — are bitwise-identical to 'xla' (the one-hot
-    gather): MVs, bitstream, and reconstruction."""
+    — 'slice' (clamped dynamic_slice on zero-padded planes, incl. lookahead
+    wide windows) and 'xla' with explicit lookahead — are bitwise-identical
+    to 'xla' (the one-hot gather): MVs, bitstream, and reconstruction."""
     import dataclasses
 
     from streamoptima_tpu.config import CodecConfig
@@ -409,19 +250,71 @@ def test_rowscan_fetch_modes_bitwise():
                        intra_dur=frames, search_range=4, vbs_enable=True,
                        fme_enable=True, fast_me=True, fast_me_fetch="xla")
     ref = JaxCodec(base, clip).encode(package=True)
-    for extra in (dict(fast_me_fetch="pallas"),
-                  dict(fast_me_fetch="pallas", fast_me_lookahead=3),
-                  dict(fast_me_fetch="pallas", fast_me_lookahead=4),
-                  dict(fast_me_fetch="slice"),
+    for extra in (dict(fast_me_fetch="slice"),
                   dict(fast_me_fetch="slice", fast_me_lookahead=3),
+                  dict(fast_me_fetch="slice", fast_me_lookahead=4),
                   dict(fast_me_fetch="slice", fast_me_lookahead=1),
                   dict(fast_me_fetch="xla", fast_me_lookahead=2),
-                  # whole-pass kernel (interpret mode): FME-interleaved DMA
-                  # waves + in-kernel eval_chain_flat, full engine loop
-                  dict(fast_me_pass="kernel", fast_me_lookahead=2),
-                  dict(fast_me_pass="kernel", fast_me_lookahead=4)):
+                  dict(fast_me_fetch="xla", fast_me_lookahead=4)):
         b = JaxCodec(dataclasses.replace(base, **extra), clip).encode(package=True)
         np.testing.assert_array_equal(ref["reconstructed frames"], b["reconstructed frames"],
                                       err_msg=str(extra))
         np.testing.assert_equal(ref["MVS per Frame"], b["MVS per Frame"])
         np.testing.assert_equal(ref["approx residual"], b["approx residual"])
+
+
+@pytest.mark.parametrize("P,h,w,wr,wc,nb", [
+    (4, 64, 96, 18, 18, 41),     # FME square confirm window (n+2)
+    (1, 48, 56, 10, 10, 200),    # whole-pel small block, many origins
+    (8, 40, 48, 18, 18, 9),      # multi-ref FME stack
+    (4, 64, 96, 21, 69, 23),     # FME k=4 lookahead wide window
+    (1, 80, 120, 24, 72, 37),    # whole-pel k=4 lookahead wide window
+    (2, 40, 160, 16, 128, 9),    # wide window spanning most of the plane
+])
+def test_window_read_slice_matches_window_gather(P, h, w, wr, wc, nb):
+    """The clamped-dynamic_slice fetch ("slice" mode) is bit-identical to the
+    one-hot gather for any origin — in-plane, clipped at every edge, and
+    absurdly far out (clamping is exact zero-fill: origins outside
+    (-nwin, H/W) have no plane overlap and read all zeros), for square and
+    rectangular (lookahead) windows, including square reads served by a
+    WIDE prep's padding."""
+    rng = np.random.default_rng(P * 1000 + h + wc)
+    planes = jnp.asarray(rng.integers(0, 256, (P, h, w)), jnp.bfloat16)
+    by0 = jnp.asarray(np.concatenate(
+        [rng.integers(-60, h + 30, nb - 4), [-(10**6), 10**6, -wr, h]]), jnp.int32)
+    bx0 = jnp.asarray(np.concatenate(
+        [rng.integers(-80, w + 30, nb - 4), [10**6, -(10**6), w, -wc]]), jnp.int32)
+    ref = np.asarray(FM.window_gather(planes, by0, bx0, wr, jnp, nwin_c=wc))
+    prep = FM.window_prep(planes, min(wr, wc), "slice", wide=(wr, wc))
+    got = np.asarray(FM.window_read(prep, by0, bx0, wr, jnp, nwin_c=wc))
+    np.testing.assert_array_equal(ref, got)
+    nsq = min(wr, wc) - 3
+    ref_sq = np.asarray(FM.window_gather(planes, by0, bx0, nsq, jnp))
+    got_sq = np.asarray(FM.window_read(prep, by0, bx0, nsq, jnp))
+    np.testing.assert_array_equal(ref_sq, got_sq)
+
+
+@pytest.mark.parametrize("req,plane_px,want", [
+    ("auto", 4 * 288 * 352, "xla"),       # CIF FME stack: one-hot
+    ("auto", 4 * 720 * 1280, "slice"),    # 720p FME stack: slice
+    ("auto", 1 * 1088 * 1920, "xla"),     # 1080p whole-pel single ref
+    ("xla", 4 * 2160 * 3840, "xla"),      # explicit requests are honored
+    ("slice", 1 * 64 * 64, "slice"),
+])
+def test_resolve_fetch_mode(req, plane_px, want):
+    assert FM.resolve_fetch_mode(req, plane_px, 1, 1) == want
+
+
+@pytest.mark.parametrize("req,seg_len,n_segments,want", [
+    ("auto", 80, 45, 4),     # 720p: 45 block rows -> lookahead 4
+    ("auto", 22, 18, 1),     # CIF: fewer than 32 segments -> 1
+    ("auto", 3, 64, 3),      # clamped to the segment length
+    (2, 80, 4, 2),           # explicit request honored
+])
+def test_resolve_lookahead(req, seg_len, n_segments, want):
+    assert FM.resolve_lookahead(req, seg_len, n_segments) == want
+
+
+def test_resolve_lookahead_warns_on_clamped_request():
+    with pytest.warns(UserWarning, match="fast_me_lookahead=9"):
+        assert FM.resolve_lookahead(9, 5, 40) == 5

@@ -3,8 +3,7 @@ decode must reproduce the encoder's reconstructions bit-exactly for every
 feature combination (the decoder.py:487-545 contract), and the package's
 scalar metadata must survive the text round trip.
 
-Seeded, so failures reproduce; dims stay small (CPU interpret for any
-Pallas dispatch).
+Seeded, so failures reproduce; dims stay small.
 """
 import dataclasses
 import os
@@ -37,7 +36,7 @@ def _random_cfg(rng):
         vbs_enable=vbs, fme_enable=fme,
         fast_me=bool(rng.integers(0, 2)),
         n_ref_frames=int(rng.integers(1, 4)),
-        me_search=str(rng.choice(["auto", "pallas", "fused", "materialized"])),
+        me_search=str(rng.choice(["auto", "auto", "fused", "materialized"])),
         engine="jax",
     )
     if vbs:
@@ -106,7 +105,7 @@ def test_random_config_mesh_matches_single_chip(seed):
         vbs_enable=vbs, fme_enable=bool(rng.integers(0, 2)),
         fast_me=bool(rng.integers(0, 2)),
         n_ref_frames=int(rng.integers(1, 3)),
-        me_search=str(rng.choice(["fused", "materialized", "pallas"])),
+        me_search=str(rng.choice(["fused", "materialized", "fused"])),
     )
     if vbs:
         kw["lam"] = 0.015
